@@ -32,12 +32,8 @@ MODULES = [
     ("pyaudiodsptools_tpu.parallel.timescan", "Time-sharded recurrences"),
     ("pyaudiodsptools_tpu.parallel.dist", "Multi-host runtime"),
     ("pyaudiodsptools_tpu.parallel.dynspec", "Time-sharded dynamics"),
-    ("pyaudiodsptools_tpu.kernels.dynamics_pallas", "Pallas dynamics kernels"),
-    ("pyaudiodsptools_tpu.kernels.relayout", "Pallas relayout kernels"),
+    ("pyaudiodsptools_tpu.kernels.dynamics_walk", "Dynamics walk kernel"),
     ("pyaudiodsptools_tpu.core.settings", "Settings registry"),
-    ("pyaudiodsptools_tpu.kernels.matmul_fft", "MXU FFT"),
-    ("pyaudiodsptools_tpu.kernels.pallas_conv", "Fused Pallas convolution"),
-    ("pyaudiodsptools_tpu.kernels.tail_pallas", "Fused tail kernel"),
     ("pyaudiodsptools_tpu.runtime.realtime", "Realtime native runtime"),
     ("pyaudiodsptools_tpu.runtime.portaudio", "Audio-device adapter"),
     ("pyaudiodsptools_tpu.core.dfloat", "Double-float arithmetic"),

@@ -3,12 +3,9 @@
 The reference publishes a built docs site (reference docs/conf.py,
 README.md:7 readthedocs). This generator is the framework's counterpart
 and the BUILD OF RECORD (PARITY.md #31): it renders every docs/*.md page
-(api.md, architecture.md, migration.md, roofline.md, scaling.md) plus an
-index into ``docs/_build/html/`` using only the stdlib — headings, code
-fences, inline code, tables, lists, links, emphasis. A Sphinx scaffold was
-committed in rounds 2-4 but could never execute (no sphinx in the
-environment, installs disallowed); round 5 dropped it rather than ship a
-build system that had never built. tests/test_docs.py executes this
+(api.md, architecture.md, migration.md) plus an index into
+``docs/_build/html/`` using only the stdlib — headings, code fences, inline
+code, tables, lists, links, emphasis. tests/test_docs.py executes this
 generator and checks the site is well-formed.
 
 Usage: python docs/gen_html.py  (or ``make -C docs html``)
@@ -25,9 +22,7 @@ OUT = os.path.join(DOCS, "_build", "html")
 
 PAGES = [
     ("architecture.md", "Architecture"),
-    ("scaling.md", "Predicted multi-chip scaling"),
     ("migration.md", "Migration from pyAudioDspTools"),
-    ("roofline.md", "Roofline accounting"),
     ("api.md", "API reference"),
 ]
 
@@ -150,11 +145,12 @@ def main() -> None:
         f'<a href="{os.path.splitext(src)[0]}.html">{html.escape(t)}</a>'
         for src, t in [("index.md", "Home")] + pages)
     index_body = ["<h1>pyaudiodsptools_tpu</h1>",
-                  "<p>A TPU-native audio-effects framework with the full "
-                  "pyAudioDspTools feature set: functional effects over "
-                  "<code>(params, state, block)</code>, jit-compiled chains, "
-                  "Pallas/Mosaic kernels for the hot paths, and a "
-                  "<code>jax.sharding</code> multi-chip layer.</p>", "<ul>"]
+                  "<p>An accelerator-native audio-effects framework with "
+                  "the full pyAudioDspTools feature set: functional effects "
+                  "over <code>(params, state, block)</code>, jit-compiled "
+                  "chains, a Pallas kernel for the dynamics automaton, and "
+                  "a <code>jax.sharding</code> multi-device layer.</p>",
+                  "<ul>"]
     for src, title in pages:
         dst = os.path.splitext(src)[0] + ".html"
         with open(os.path.join(DOCS, src)) as f:

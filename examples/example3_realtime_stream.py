@@ -1,8 +1,8 @@
-"""Realtime streaming — the reference's Example3.py, TPU-native.
+"""Realtime streaming — the reference's Example3.py.
 
 The reference runs a PyAudio duplex stream with the effect in the C callback
 (Example3.py:20-46) and polls CPU load. Here the native ring-buffer runtime
-pumps fixed blocks through the precompiled TPU chain step. When a PortAudio
+pumps fixed blocks through the precompiled chain step. When a PortAudio
 binding (sounddevice / pyaudio) is installed, real duplex hardware drives
 the rings via runtime.DuplexAudioStream — Example3's exact role; otherwise a
 synthetic producer stands in, and deadline stats replace get_cpu_load().

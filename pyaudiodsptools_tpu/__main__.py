@@ -62,12 +62,13 @@ def main(argv=None) -> int:
                          "of this many blocks (for very long inputs)")
     args = ap.parse_args(argv)
 
-    from .core import wavio
+    from .core import settings, wavio
     from .core.config import EngineConfig
     from .engine import render
     from .engine.render import render_segmented
     import numpy as np
 
+    settings.enable_compile_cache()
     audio, rate = wavio.read_wav(args.input)
     cfg = EngineConfig(sample_rate=args.sample_rate or rate,
                        block_size=args.block_size)

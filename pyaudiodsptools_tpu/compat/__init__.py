@@ -7,7 +7,7 @@
 
 Exports the reference's full public API (``/root/reference/pyAudioDspTools/
 __init__.py:11-28``) plus its unexported WIP devices (Reverb, BitCrusher) as
-first-class citizens, backed by the TPU-native functional ops.
+first-class citizens, backed by the functional ops.
 """
 
 from . import config

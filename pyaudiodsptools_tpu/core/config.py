@@ -33,7 +33,7 @@ class EngineConfig:
         reference, ``config.py:26-29``).
     dtype:
         Compute dtype for the signal path. float32 matches the reference's
-        audio dtype and is the TPU-native choice.
+        audio dtype and is the accelerators' native choice.
     """
 
     sample_rate: int = 44100

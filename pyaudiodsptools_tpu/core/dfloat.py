@@ -2,7 +2,7 @@
 
 A value is carried as an unevaluated sum ``hi + lo`` of two float32s with
 ``|lo| <= ulp(hi)/2`` — ~49 bits of effective mantissa, more than float64's
-53 minus headroom, all in native f32 VPU ops. Used where a recurrence must
+53 minus headroom, all in native f32 ops. Used where a recurrence must
 match the reference's float64 loops beyond what plain f32 reaches (the
 EQ3Band biquad associative scan, ops/eq3band.py; parity target
 /root/reference/pyAudioDspTools/EffectEQ3Band.py:111-113's float64 math).

@@ -50,3 +50,18 @@ def whitenoise(key: jax.Array, n_samples: int, sample_rate: int,
     spec = spec.at[1 : n_pos + 1].multiply(phasor)
     spec = spec.at[-1 : -1 - n_pos : -1].set(jnp.conj(spec[1 : n_pos + 1]))
     return (jnp.fft.ifft(spec).real * 5.0).astype(jnp.float32)
+
+
+def demo_signal(n_samples: int, sample_rate: int, channels: int = 1,
+                seed: int = 0) -> np.ndarray:
+    """A deterministic test program standing in for the reference's bundled
+    TestFile wavs: per channel, a 0.4-amplitude sine (440 Hz times the
+    channel number) over band-limited noise. Returns float32 numpy,
+    ``(n,)`` for one channel, else ``(channels, n)``."""
+    key = jax.random.key(seed)
+    rows = [0.4 * np.asarray(sine(440.0 * (c + 1), n_samples, sample_rate))
+            + np.asarray(whitenoise(jax.random.fold_in(key, c), n_samples,
+                                    sample_rate))
+            for c in range(channels)]
+    out = np.stack(rows).astype(np.float32)
+    return out[0] if channels == 1 else out

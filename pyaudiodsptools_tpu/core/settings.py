@@ -1,79 +1,36 @@
-"""The framework's environment-variable settings registry.
+"""The framework's settings registry and its one backend dispatch point.
 
-Round-4 review (VERDICT r4, weak #6) flagged that kernel behavior was
-steered by env vars scattered across five modules and read at import or
-trace time, with nothing documenting them in one place or detecting a
-Chain built before the backend was configured. This module is that one
-place: every ``PADT_*`` variable, its meaning, default, and WHEN it is
-read. ``snapshot()`` returns the currently-effective values (for logging /
-bench artifacts), and :func:`current_backend` is the build-time backend
-stamp ``engine.chain.Chain`` validates at render time.
+Every environment variable the package reads is listed in ``REGISTRY`` with
+its meaning, default, and WHEN it is read; ``snapshot()`` returns the
+currently-effective values (for logging / bench artifacts).
 
-Read-time semantics matter on this codebase:
-
-* **trace** — read when a jitted program is traced. Rebuilding the Chain /
-  re-jitting picks up a change; an already-compiled program does not.
-* **import** — read once when the module first imports; changing it later
-  in-process has no effect (use the documented setter where one exists,
-  e.g. ``pallas_conv.set_precision_tier``).
+:func:`current_backend` is the build-time backend stamp
+``engine.chain.Chain`` validates at render time, and
+:func:`use_walk_kernel` is the only place that decides a backend-dependent
+execution path.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 from typing import NamedTuple
 
 
 class Setting(NamedTuple):
     name: str
     default: str
-    read_time: str   # "import" | "trace"
+    read_time: str   # "import" | "trace" | "start"
     where: str       # module that reads it
     meaning: str
 
 
 REGISTRY: tuple[Setting, ...] = (
-    Setting("PADT_FFT_PRECISION", "high", "import (setter available)",
-            "kernels.pallas_conv",
-            "Conv DFT precision tier: 'highest' (f32 HIGHEST dots, ~132 dB),"
-            " 'high' (bf16x3, ~102 dB, default), 'fast' (Karatsuba bf16x3,"
-            " ~99 dB). Runtime switch: pallas_conv.set_precision_tier."),
-    Setting("PADT_CONV_RADIX2", "1", "trace", "kernels.pallas_conv",
-            "Radix-2 DIF outer split for eligible conv sizes (default ON;"
-            " +4.4% chain, BENCH_AB_r04). '0' restores the flat 4-step."),
-    Setting("PADT_CONV_PAIRS", "0 (auto)", "trace", "kernels.pallas_conv",
-            "Override conv pairs-per-step. Auto: 1 on union-eligible"
-            " geometries (smaller per-step math overlaps DMA better -"
-            " BENCH_CONV_r05 P sweep), the caller's request elsewhere."),
-    Setting("PADT_CONV_AUTOOUT", "0", "trace", "kernels.pallas_conv",
-            "Union-DMA conv variant that stores through Pallas's automatic"
-            " output pipeline instead of manual DMA (bit-equal, within"
-            " noise - BENCH_CONV_r05)."),
-    Setting("PADT_CONV_STAGE_SCRATCH", "0", "trace", "kernels.pallas_conv",
-            "Round-trip conv-math intermediates through VMEM scratch"
-            " (bit-equal; within noise leaning negative - BENCH_CONV_r05)."),
-    Setting("PADT_DYN_LOOP", "hybrid", "trace", "kernels.dynamics_pallas",
-            "Speculative-dynamics sweep loop strategy: 'hybrid' (states-only"
-            " prepass + write-every-sweep, default), 'write', 'states'."
-            " All bit-equal (tests/test_fusion.py)."),
-    Setting("PADT_DYN_STATES_ONLY", "0", "trace", "kernels.dynamics_pallas",
-            "Legacy alias: '1' forces the 'states' loop strategy."),
-    Setting("PADT_DYN_UNROLL", "1", "trace", "kernels.dynamics_pallas",
-            "Manual unroll factor of the automaton walk (A/B'd: within"
-            " noise - BENCH_DYN_r05)."),
-    Setting("PADT_DYN_TTILE", "0", "trace", "kernels.dynamics_pallas",
-            "Override the sweep kernels' time tile (0 = auto ~64; 256"
-            " regresses - BENCH_DYN_r05)."),
-    Setting("PADT_DYN_MAX_SWEEPS", "0", "trace", "kernels.dynamics_pallas",
-            "DEBUG ONLY (bench_dyn --parts): caps the fixpoint loop;"
-            " truncating convergence produces WRONG audio."),
-    Setting("PADT_TAIL_FAST_POW", "0", "trace (chain build)",
-            "kernels.tail_pallas",
-            "Opt-in exp2/log2 polynomial pow in the fused tail's softclip"
-            " (loses to Mosaic's builtin pow on v5e - BENCH_AB_r05)."),
-    Setting("PADT_DYNSPEC_INTERPRET", "0", "trace", "parallel.dynspec",
-            "Force the cross-device dynamics stepper into Pallas interpret"
-            " mode on any backend (CI exercises the composition this way)."),
+    Setting("JAX_COMPILATION_CACHE_DIR", "<checkout>/.jax_cache", "start",
+            "core.settings",
+            "JAX's persistent compile cache. When set, JAX uses it as it"
+            " stands; otherwise enable_compile_cache() points JAX at the"
+            " fixed, gitignored <checkout>/.jax_cache."),
 )
 
 
@@ -83,7 +40,42 @@ def snapshot() -> dict[str, str]:
 
 
 def current_backend() -> str:
-    """The backend that trace-time planning decisions will bake in."""
+    """The backend that trace-time planning decisions will bake in: the
+    platform of ``jax.default_device`` where one is set (so a CPU reference
+    can be built and run beside the GPU in one process), else JAX's default
+    backend."""
     import jax
 
-    return jax.default_backend()
+    dev = jax.config.jax_default_device
+    if dev is None:
+        return jax.default_backend()
+    if isinstance(dev, str):
+        return jax.devices(dev)[0].platform
+    return dev.platform
+
+
+def use_walk_kernel() -> bool:
+    """Whether compressor/gate run as the compiled dynamics walk kernel
+    (kernels/dynamics_walk.py, Pallas on the Triton route: the GPU) or as
+    the serial ``lax.scan`` of ops/dynamics.py (every other backend).
+
+    The two are bit-identical; the kernel exists because a scan costs one
+    device loop iteration per sample."""
+    return current_backend() == "gpu"
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compile cache and return its directory.
+
+    With ``JAX_COMPILATION_CACHE_DIR`` set, JAX already uses it and nothing
+    is changed. Otherwise the cache goes to ``<checkout>/.jax_cache``: a
+    fixed path, because the path is part of what makes an entry hit. Call
+    before the first compilation."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    path = str(Path(__file__).resolve().parents[2] / ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -1,7 +1,7 @@
 """Resumable offline rendering: crash recovery for long renders.
 
 SURVEY.md §5 failure-detection plan: the reference has nothing; the minimal
-TPU-native mechanism is deterministic re-render from block k — snapshot the
+mechanism is deterministic re-render from block k — snapshot the
 chain state every N blocks, and on restart resume from the last complete
 segment. Because every op's state is an explicit pytree, a snapshot is just
 arrays; determinism comes from jit purity.

@@ -2,7 +2,7 @@
 
 The reference's realtime path is a PyAudio callback mutating device state
 (Example3.py:20-25) with an 11.6 ms deadline per 512-sample block
-(ModuleTests.py:24). The TPU equivalent (SURVEY.md §3.4): a host-side driver
+(ModuleTests.py:24). The equivalent here (SURVEY.md §3.4): a host-side driver
 that feeds fixed-shape blocks to a pre-compiled chain step and carries the
 state pytree explicitly. ``warmup()`` triggers compilation before the first
 deadline; state snapshot/restore gives checkpoint/resume for long renders

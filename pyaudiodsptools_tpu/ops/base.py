@@ -18,7 +18,7 @@ hostile to jit/scan/shard, so this framework uses the idiomatic JAX form
 Each op may additionally provide an ``offline`` fast path that maps whole
 ``(..., num_blocks, block_size)`` signals at once — the block-parallel
 formulation (batched FFT windows, shifted-adds, closed-form LFO) that gives the
-TPU its throughput; ``offline`` must produce bit-equivalent results to folding
+accelerator its throughput; ``offline`` must produce bit-equivalent results to folding
 ``step`` over the block axis.
 """
 

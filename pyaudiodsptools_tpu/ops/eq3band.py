@@ -13,7 +13,7 @@ Two reference quirks replicated/handled deliberately (SURVEY.md §7):
   Replicated exactly (it is audible only as 1 sample of latency per band).
 * ``Fs`` is hard-coded to 44100.0 (:33); we honor ``cfg.sample_rate``.
 
-TPU-first design: the sequential IIR recurrence is reformulated as a blocked
+Design: the sequential IIR recurrence is reformulated as a blocked
 associative scan over affine maps ``s[n] = M s[n-1] + c[n]`` with the 2x2
 companion matrix M — log-depth on device instead of a per-sample Python loop
 (SURVEY.md §7 hard part #2). The FIR part of each band is a parallel shifted
@@ -24,8 +24,8 @@ The scan runs in DOUBLE-FLOAT (f32x2 compensated, core/dfloat.py): plain-f32
 composition reaches only ~62-68 dB vs the reference's float64 loop because
 rounding errors are amplified through the feedback poles; carrying every
 coefficient, state word, and inter-band intermediate as an (hi, lo) f32 pair
-restores >100 dB while staying in native f32 VPU ops (no x64 mode, which TPUs
-only emulate).
+restores >100 dB while staying in native f32 ops (no x64 mode, which
+accelerators run far slower than f32 or only emulate).
 """
 
 from __future__ import annotations

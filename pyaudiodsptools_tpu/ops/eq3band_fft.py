@@ -9,12 +9,12 @@ forward FFT of the 3-block window, three band multiplies, the shelf-gain trick
 ``band*g - band = band*(g-1)`` (:195,200,205), mixed with the 1-block-delayed
 dry middle chunk (:209). Latency: exactly one block.
 
-TPU-first: the three band responses collapse at build time into ONE weighted
+Design: the three band responses collapse at build time into ONE weighted
 impulse response ``(g_hi-1)*h_hi + (g_lo-1)*h_lo + (g_mid-1)*h_mid``, and the
 1-block-delayed dry path is a unit tap at index ``block_size`` — so the whole
 EQ is a single FIR executed by the generic ``fft_filter.fir`` machinery
-(pow2 streaming windows on the MXU/fused-conv tier; stripped-lead segmented
-convolution offline). Per-block cost equals a single FFT filter.
+(minimal wrap-free streaming windows; stripped-lead segmented convolution
+offline). Per-block cost equals a single FFT filter.
 """
 
 from __future__ import annotations

@@ -107,13 +107,13 @@ def phase_schedule(params: TremoloParams, num_blocks: int, n: int | None = None
 
 
 def gain_row(params: TremoloParams, nb: int, n: int) -> jnp.ndarray:
-    """The whole render's per-sample gain as one flat (nb*n,) f32 row —
-    shared by ``offline`` and the fused tail kernel (kernels/tail_pallas)."""
+    """The whole render's per-sample gain as one flat (nb*n,) f32 row (the
+    offline path)."""
     phases = jnp.asarray(phase_schedule(params, nb, n), dtype=jnp.int32)
     idx = (phases[:, None] + jnp.arange(n, dtype=jnp.int32)[None, :]) % params.lfo_length
-    # Arithmetic LFO instead of a table gather: big gathers are ~10x the
-    # elementwise cost on TPU. The reference's table is float32(sin(...))
-    # of the SAME mod-L index (periodicity is only exact when sr/lfo_hz is
+    # Arithmetic LFO instead of a table gather: a signal-sized gather costs
+    # more than the fused elementwise sin. The reference's table is
+    # float32(sin(...)) of the SAME mod-L index (periodicity is only exact when sr/lfo_hz is
     # an integer, hence the explicit mod); computing sin in f32 on device
     # differs from the f64-built table by ulps (>130 dB, bound is 60).
     ph = idx.astype(jnp.float32) * params.omega

@@ -93,69 +93,6 @@ def _softclip(p: SoftClipperParams, x: jnp.ndarray) -> jnp.ndarray:
     return jnp.where(neg, -a, a).astype(x.dtype)
 
 
-# |x-1|^drive is the tail stage's single transcendental; round 4's roofline
-# attributed ~2-3 ms of the ~4.9 ms stage wall to it, so round 5 built this
-# bounded-domain replacement: u in [0, 1], drive ~1-3, parity budget 60 dB
-# against a >100 dB margin -> an explicit exp2(d*log2(u)) with short
-# least-squares polynomials is exact enough (max abs error <= ~6e-7,
-# tests/test_ops_parity.py::test_fast_pow_accuracy). The on-chip A/B
-# (BENCH_AB_r05, tail section) showed it LOSES to Mosaic's builtin pow
-# (5.37 vs 4.99 ms standalone tail): the VPU's native transcendental
-# lowering beats a ~35-op polynomial chain, i.e. the r4 attribution
-# overestimated the pow. Kept opt-in (PADT_TAIL_FAST_POW=1) with its tests
-# as the documented negative result.
-
-# log2(1+z)/z on z in [0,1) (degree 7) and exp2(f) on f in [0,1) (degree 6),
-# least-squares on Chebyshev nodes, stored high-to-low for Horner.
-_LOG2_C = (-0.012370633892714977, 0.0637875646352768, -0.1555999219417572,
-           0.25617966055870056, -0.35345467925071716, 0.4800737500190735,
-           -0.7213107347488403, 1.4426947832107544)
-_EXP2_C = (0.00021877505059819669, 0.0012387821916490793,
-           0.009684580378234386, 0.05548042804002762, 0.2402305006980896,
-           0.6931469440460205, 1.0)
-
-
-def _pow01_fast(u: jnp.ndarray, d) -> jnp.ndarray:
-    """``u ** d`` for u in [0, 1], d > 0, as exp2(d * log2(u)).
-
-    log2 splits u into exponent and mantissa by int32 bit surgery; exp2
-    rebuilds the result's exponent the same way, so the only approximation
-    error is the two short polynomials. Results below 2^-126 flush to
-    exactly 0 (the true value is under 1e-38 — no audio bit survives), which
-    also makes u == 0 return 0 for any d >= ~1."""
-    import jax
-
-    u = u.astype(jnp.float32)
-    bits = jax.lax.bitcast_convert_type(u, jnp.int32)
-    e = (bits >> 23) - 127
-    m = jax.lax.bitcast_convert_type(
-        (bits & jnp.int32(0x007FFFFF)) | jnp.int32(0x3F800000), jnp.float32)
-    z = m - 1.0
-    p = jnp.float32(_LOG2_C[0])
-    for c in _LOG2_C[1:]:
-        p = p * z + jnp.float32(c)
-    lg = e.astype(jnp.float32) + z * p
-    t = jnp.asarray(d, jnp.float32) * lg
-    i = jnp.floor(t)
-    f = t - i
-    q = jnp.float32(_EXP2_C[0])
-    for c in _EXP2_C[1:]:
-        q = q * f + jnp.float32(c)
-    ii = jnp.clip(i.astype(jnp.int32), -126, 127)
-    two_i = jax.lax.bitcast_convert_type((ii + 127) << 23, jnp.float32)
-    return jnp.where(t < -126.0, 0.0, q * two_i)
-
-
-def _softclip_fast(p: SoftClipperParams, x: jnp.ndarray) -> jnp.ndarray:
-    """_softclip with the pow evaluated by _pow01_fast — opt-in for the TPU
-    tail kernel's map stage via PADT_TAIL_FAST_POW=1 (A/B'd and defaulted
-    OFF: BENCH_AB_r05 tail section)."""
-    neg = x < 0
-    a = jnp.clip(jnp.abs(x), -1.0, 1.0)
-    a = -1.0 * _pow01_fast(jnp.abs(a - 1.0), p.drive) + 1.0
-    return jnp.where(neg, -a, a).astype(x.dtype)
-
-
 # --------------------------------------------------------------------------
 # HardDistortion
 

@@ -1,15 +1,16 @@
 """Multi-host distributed runtime (SURVEY.md §2.4, §7 step 6).
 
-The reference has no distributed layer at all; this module supplies the
-TPU-native one: ``jax.distributed.initialize`` over the pod's coordination
-service, a global ('channel', 'time') mesh spanning all hosts (channel groups
-ride DCN across hosts, time halos ride ICI within a slice), and per-host
-channel I/O helpers so each host only touches its own shard of the audio.
+The reference has no distributed layer at all; this module supplies one:
+``jax.distributed.initialize`` with an explicit coordinator, a global
+('channel', 'time') mesh spanning all hosts (channel groups cross the
+network between hosts, time halos stay on the links within a host), and
+per-host channel I/O helpers so each host only touches its own shard of the
+audio.
 
-Single-host multi-chip works through the same path (initialize() is then a
+Single-host multi-device works through the same path (initialize() is then a
 no-op). Multi-host correctness is CI-tested via the virtual-device mesh
-(tests/test_parallel.py) and the driver's dryrun_multichip entry; real pod
-runs use exactly this module.
+(tests/test_parallel.py) and the multi-process CPU test
+(tests/test_dist_multiprocess.py).
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ from .sharding import ShardedRenderer
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
-    """Join the JAX distributed runtime. With no arguments, uses the TPU
-    pod's automatic bootstrap (metadata-provided coordinator)."""
+    """Join the JAX distributed runtime. Pass the coordinator
+    (``host:port``), process count and this process's id; with no arguments
+    JAX can only auto-detect a cluster environment that provides them."""
     if num_processes is not None and num_processes <= 1:
         return
     kwargs = {}
@@ -43,8 +45,8 @@ def init_distributed(coordinator_address: str | None = None,
 def global_mesh(time: int = 1) -> Mesh:
     """('channel', 'time') mesh over ALL devices in the job (every host's
     chips). Channel groups land on different hosts first, so cross-host
-    traffic is the embarrassingly-parallel channel axis (DCN), while time
-    halos stay within a host's chips (ICI)."""
+    traffic is the embarrassingly-parallel channel axis, while time halos
+    stay within a host's devices."""
     devices = jax.devices()
     n = len(devices)
     if n % time:

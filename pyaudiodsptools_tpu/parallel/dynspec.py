@@ -4,16 +4,16 @@ The dynamics automaton (ops/dynamics.py; reference semantics
 EffectCompressor.py:68-124 / EffectGate.py:69-126) is sequential in time, so
 a time-sharded mesh previously had to all-gather the time axis and run it
 per-channel (parallel/sharding.py routed it through the channel-gathered
-path). This module extends the single-chip speculative-segment idea
-(kernels/dynamics_pallas.py) ACROSS the mesh's 'time' axis:
+path). This module extends the single-device speculative-segment idea
+(kernels/dynamics_walk.py) ACROSS the mesh's 'time' axis:
 
-  * every device scans its local time segment from a guessed entry state
+  * every device walks its local time segment from a guessed entry state
     (initially REST — the all-zeros state);
   * exit states hop to the next device with ``lax.ppermute``;
   * repeat until the entry states reach their global fixpoint (detected with
     a psum'd changed-flag), which reproduces the exact serial trajectory —
     the automaton's state is a few small ints per channel, so each round
-    moves only O(channels) bytes over ICI.
+    moves only O(channels) bytes between devices.
 
 Convergence is <= n_time rounds worst case, and 2-3 on real audio because
 the automaton synchronizes (any completed attack or release forces a state
@@ -44,77 +44,52 @@ def _as_list(params):
     return list(params) if isinstance(params, tuple) else [params]
 
 
-def _stepper():
-    """Per-device sweep primitive: the serial Pallas kernel on TPU (VPU lanes
-    across channels, no per-sample dispatch), the faithful scan elsewhere —
-    the two are bit-identical (tests/test_kernels.py).
+def _local_sweep_fn(interpret: bool):
+    """Per-device sweep primitive: (params list, entry state dicts, local
+    (C, T) signal) -> (exit state dicts, output), op j+1 consuming op j's
+    output. Where core.settings.use_walk_kernel() says so (or with
+    ``interpret=True``, which runs the kernel in Pallas interpret mode for
+    CPU tests), the segment-parallel walk kernel; elsewhere the faithful
+    scans. The two are bit-identical (tests/test_kernels.py)."""
+    from ..core.settings import use_walk_kernel
 
-    The kernel-inside-shard_map-inside-while_loop composition cannot run
-    compiled in CI (the chip has one device; CI meshes are virtual CPU
-    devices), so ``PADT_DYNSPEC_INTERPRET=1`` forces the Pallas stepper in
-    interpret mode on any backend — tests/test_dynspec.py exercises the
-    composition that way on the 8-device virtual mesh."""
-    import os
+    if interpret or use_walk_kernel():
+        from ..kernels.dynamics_walk import (decode_state, encode_state,
+                                             walk_offline)
 
-    interpret = os.environ.get("PADT_DYNSPEC_INTERPRET", "0") == "1"
-    if jax.default_backend() == "tpu" or interpret:
-        from ..kernels.dynamics_pallas import dynamics_pallas
+        def sweep(params_list, entries, x):
+            e = jnp.stack([encode_state(p, st)
+                           for p, st in zip(params_list, entries)])
+            out, z, _ = walk_offline(params_list, x, entry=e,
+                                     interpret=interpret)
+            return tuple(decode_state(p, z[j])
+                         for j, p in enumerate(params_list)), out
 
-        return lambda p, st, x: dynamics_pallas(
-            p, st, x, t_tile=min(1024, x.shape[-1]), interpret=interpret)
-    return dyn.step
+        return sweep
 
+    def sweep(params_list, entries, x):
+        exits = []
+        out = x
+        for p, st in zip(params_list, entries):
+            st, out = dyn.step(p, st, out)
+            exits.append(st)
+        return tuple(exits), out
 
-_compiled_multidevice_warned = False
-
-
-def _warn_first_compiled_multidevice(mesh) -> None:
-    """Loud, once-per-process fence (VERDICT r4 #7): the COMPILED (non-
-    interpret) Pallas stepper inside shard_map inside while_loop has never
-    executed on a real multi-device TPU mesh — CI covers the composition in
-    interpret mode on a virtual mesh only, and this environment has one
-    chip. When a pod exists, run ``python bench_pod.py
-    --compiled-dynspec-probe`` (a tiny isolated render of exactly this
-    branch) before relying on it in a long job."""
-    global _compiled_multidevice_warned
-    import os
-
-    interpret = os.environ.get("PADT_DYNSPEC_INTERPRET", "0") == "1"
-    if (not _compiled_multidevice_warned and not interpret
-            and jax.default_backend() == "tpu"
-            and mesh.shape.get("time", 1) > 1):
-        import warnings
-
-        warnings.warn(
-            "dynspec: first compiled Pallas-stepper execution on a "
-            "multi-device 'time' mesh in this process — this Mosaic "
-            "composition is CI-validated in interpret mode only; probe it "
-            "with `python bench_pod.py --compiled-dynspec-probe` first "
-            "(see parallel/dynspec.py).", stacklevel=3)
-        _compiled_multidevice_warned = True
-
-
-def _local_sweep(step, params_list, entries, x):
-    """Scan the local segment from the given entry states: returns (exit
-    states, output). Op j+1 consumes op j's output (cascade order)."""
-    exits = []
-    out = x
-    for p, st in zip(params_list, entries):
-        st, out = step(p, st, out)
-        exits.append(st)
-    return tuple(exits), out
+    return sweep
 
 
 def dynamics_offline_time_sharded(params, blocks: jnp.ndarray,
-                                  mesh: Mesh) -> jnp.ndarray:
+                                  mesh: Mesh,
+                                  interpret: bool = False) -> jnp.ndarray:
     """Time-sharded offline dynamics (single op or fused cascade).
 
     blocks: (C, nb, B) laid out P('channel', 'time', None) on ``mesh``;
     returns the same layout. Must be called under jit (ShardedRenderer does).
+    ``interpret=True`` runs the walk kernel in Pallas interpret mode (CPU
+    tests of the kernel-inside-shard_map composition).
     """
     n_time = mesh.shape["time"]
-    step = _stepper()
-    _warn_first_compiled_multidevice(mesh)
+    sweep = _local_sweep_fn(interpret)
 
     def local(params, b):
         params_list = _as_list(params)
@@ -126,7 +101,7 @@ def dynamics_offline_time_sharded(params, blocks: jnp.ndarray,
 
         def body(carry):
             e, _, it, _ = carry
-            z, out = _local_sweep(step, params_list, e, x)
+            z, out = sweep(params_list, e, x)
             # device i's exit becomes device i+1's entry; device 0 keeps the
             # true initial state (REST — ppermute's zero-fill equals it, but
             # the where() keeps correctness independent of that encoding).

@@ -7,7 +7,7 @@ The mesh axes (SURVEY.md §2.4, §5):
     save windows need only a fixed 2-block halo from the left neighbor (the
     reference's history window, EffectFFTFilter.py:40-42); delay/reverb taps
     ride the same shifted-slice collectives. GSPMD lowers these to
-    collective-permute over ICI.
+    collective-permutes between neighbouring devices.
 
 The reference has no parallelism of any kind (single thread, single process);
 these axes make its two implicit parallel dimensions (channels, chunk sequence)

@@ -6,7 +6,7 @@ Strategy (SURVEY.md §5 "long-context / sequence parallelism"):
   reverb — ``Effect.time_parallel``) run with blocks sharded over BOTH axes:
   ``P('channel', 'time')``. Their shifted-window/shifted-add structure needs
   only neighbor blocks, which GSPMD lowers to collective-permute halo
-  exchanges over ICI — the framework's ring/CP equivalent.
+  exchanges between devices — the framework's ring/CP equivalent.
 * Recurrent ops (compressor, gate, biquad EQ — sequential carry over time)
   reshard to ``P('channel', None)``: channels stay distributed (pure DP), time
   is gathered locally so the scan runs at full speed without per-sample

@@ -57,10 +57,14 @@ def _band_sharded(coeffs, x: jnp.ndarray, axis_name: str) -> jnp.ndarray:
     )
     v = jnp.stack([c, jnp.zeros_like(c)], axis=-1)[..., None]
 
+    # f32 matrix products run in full precision: the GPU's default may use
+    # TF32 (~3 decimal digits), far below the recurrence's parity bar.
+    mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+
     def compose(left, right):
         ml, vl = left
         mr, vr = right
-        return (mr @ ml, mr @ vl + vr)
+        return (mm(mr, ml), mm(mr, vl) + vr)
 
     a_cum, b_cum = jax.lax.associative_scan(compose, (m, v), axis=m.ndim - 3)
 
@@ -72,14 +76,14 @@ def _band_sharded(coeffs, x: jnp.ndarray, axis_name: str) -> jnp.ndarray:
 
     def fold(j, s):
         use = j < t
-        s_new = a_all[j] @ s + b_all[j]
+        s_new = mm(a_all[j], s) + b_all[j]
         return jnp.where(use, s_new, s)
 
     s0 = jnp.zeros(b_tot.shape, dtype=c.dtype)
     s_in = jax.lax.fori_loop(0, p, fold, s0)
 
     # 4. correction: purely local.
-    y = (a_cum @ s_in[..., None, :, :] + b_cum)[..., 0, 0]
+    y = (mm(a_cum, s_in[..., None, :, :]) + b_cum)[..., 0, 0]
     return y
 
 

@@ -4,7 +4,7 @@ The reference's profiling is ``time.perf_counter`` prints per effect
 (ModuleTests.py:97-105). Here:
 
 * ``annotate_chain`` wraps each op's kernels in ``jax.named_scope`` so
-  per-effect cost shows up in XLA/TPU profiler traces (TensorBoard,
+  per-effect cost shows up in XLA profiler traces (TensorBoard,
   ``jax.profiler.trace``).
 * ``trace`` is a thin context manager around ``jax.profiler`` writing a
   TensorBoard-compatible trace directory.
@@ -47,7 +47,7 @@ def annotate_chain(chain: Chain) -> Chain:
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Capture a TPU/XLA profiler trace: ``with profiling.trace('/tmp/tb'):``"""
+    """Capture a JAX/XLA profiler trace: ``with profiling.trace('/tmp/tb'):``"""
     jax.profiler.start_trace(log_dir)
     try:
         yield

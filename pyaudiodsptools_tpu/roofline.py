@@ -1,85 +1,55 @@
-"""Roofline / MFU cost models (SURVEY.md §5 tracing plan: "cost model check
+"""Roofline cost models (SURVEY.md §5 tracing plan: "cost model check
 vs roofline" for the FFT/filter kernels; BASELINE.json restates it).
 
-For every hot path this models the two hardware budgets a TPU render can be
-bound by — HBM bytes moved and MXU bf16 FLOPs — so a measured wall time
-turns into "% of the bandwidth roofline" and "% of the compute roofline",
-and the binding resource can be NAMED instead of guessed. bench_ops.py
---roofline emits these next to the measured numbers; the captured chip run
-lives in BENCH_OPS.json / docs/roofline.md.
+For every hot path this models the two budgets a render on the card can be
+bound by — device-memory bytes moved and float32 operations — so a measured
+wall time turns into "% of the bandwidth roofline" and "% of the compute
+roofline", and the binding resource can be NAMED instead of guessed.
+``bench_ops.py --roofline`` emits these next to the measured numbers.
 
-Peak numbers: TPU v5e (v5 lite) public specs — 197 TFLOP/s bf16 per chip,
-819 GB/s HBM. The VPU peak (elementwise f32 lanes) is ~3.7 TFLOP/s
-(8x128 lanes x 4 ALUs x ~0.9 GHz plus 1.25 GHz clock rounding — used only to
-sanity-label VPU-bound ops, not as a precise bound).
+Peaks are published data-sheet rates keyed by JAX's ``device_kind``; a
+device that is not in the table is an error, not a default.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-
-from .kernels.matmul_fft import _plan
 
 
 @dataclass(frozen=True)
 class Peaks:
-    mxu_bf16_flops: float
+    tensor_bf16_flops: float   # dense bf16 on the tensor cores
+    fp32_flops: float          # float32 outside the tensor cores
     hbm_bytes_per_s: float
-    vpu_f32_flops: float
 
 
-_PEAKS = {
-    # jax device_kind prefixes
-    "TPU v5 lite": Peaks(197e12, 819e9, 3.7e12),
-    "TPU v5e": Peaks(197e12, 819e9, 3.7e12),
-    "TPU v5": Peaks(459e12, 1228e9, 7.4e12),      # v5p
-    "TPU v4": Peaks(275e12, 1200e9, 4.9e12),
+PEAKS = {
+    # NVIDIA H100 SXM data sheet (dense rates, 700 W power limit).
+    "NVIDIA H100 80GB HBM3": Peaks(989e12, 67e12, 3.35e12),
 }
-_DEFAULT = Peaks(197e12, 819e9, 3.7e12)
 
 
 def peaks_for(device_kind: str) -> Peaks:
-    for prefix, p in _PEAKS.items():
-        if device_kind.startswith(prefix):
-            return p
-    return _DEFAULT
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}; add it to "
+            "pyaudiodsptools_tpu.roofline.PEAKS with its source") from None
 
 
-def conv_cost(C: int, T: int, block_size: int, halo: int, seg: int,
-              pairs_per_step: int = 2, tier: str | None = None) -> dict:
-    """Model of kernels/pallas_conv.segmented_conv_fused.
+def conv_cost(C: int, T: int, block_size: int, halo: int, seg: int) -> dict:
+    """Model of ops/fft_filter.segmented_fft_conv (XLA overlap-save).
 
-    Per complex pair-window (2 real signals) the 4-step runs 6 complex
-    matmuls: two n1-contractions (n1^2 * n2 cMACs each) and four
-    n2-contractions (n1 * n2^2 each) -> 2*n*(n1+n2) cMACs. A complex matmul
-    is 4 real products (3 on the Karatsuba 'fast' tier), each bf16x3 = 3 MXU
-    passes ('highest' = 6). HBM: the in-kernel DMA reads each window once
-    ((halo+seg)/seg x the signal) and writes the signal once.
-    """
-    import os
-
-    from .kernels.pallas_conv import auto_pairs, use_radix2
-
-    tier = tier or os.environ.get("PADT_FFT_PRECISION", "high").lower()
-    B = block_size
-    n = (halo + seg) * B
-    seg_len = seg * B
-    n_seg = -(-T // seg_len)
-    P = auto_pairs(n, pairs_per_step)  # VMEM guard shrinks P for big windows
-    S = -(-n_seg // (2 * P)) * (2 * P)  # padded
-    pair_windows = C * S / 2
-    if use_radix2(n):
-        # one DIF level: two size-n/2 pipelines -> 2 * 2*(n/2)*(m1+m2) cMACs
-        m1, m2 = _plan(n // 2)
-        cmacs = pair_windows * 2 * n * (m1 + m2)
-    else:
-        n1, n2 = _plan(n)
-        cmacs = pair_windows * 2 * n * (n1 + n2)
-    products = 3 if tier == "fast" else 4
-    passes = 6 if tier == "highest" else 3
-    mxu_flops = cmacs * products * passes * 2  # MAC = mul+add
-    bytes_ = 4 * C * (S * n + T)  # f32 reads (windows, padded) + write
-    return {"bytes": bytes_, "mxu_flops": mxu_flops, "vpu_flops": 0.0}
+    Each n = (halo+seg)*B window is read once — (halo+seg)/seg times the
+    signal — and one signal is written. Per window: a real FFT and its
+    inverse (~2.5 n log2 n flops each) and the complex spectrum multiply
+    (~6 flops per bin)."""
+    n = (halo + seg) * block_size
+    n_windows = C * -(-T // (seg * block_size))
+    flops = n_windows * (5.0 * n * math.log2(n) + 3.0 * n)
+    return {"bytes": 4.0 * (n_windows * n + C * T), "flops": flops}
 
 
 def conv_cost_from_params(C: int, T: int, p) -> dict | None:
@@ -95,50 +65,35 @@ def conv_cost_from_params(C: int, T: int, p) -> dict | None:
 
 def simple_cost(C: int, T: int, read_passes: float = 1.0,
                 write_passes: float = 1.0,
-                vpu_flops_per_sample: float = 10.0) -> dict:
+                flops_per_sample: float = 10.0) -> dict:
     return {"bytes": 4.0 * C * T * (read_passes + write_passes),
-            "mxu_flops": 0.0,
-            "vpu_flops": float(C) * T * vpu_flops_per_sample}
+            "flops": float(C) * T * flops_per_sample}
 
 
-def dynamics_cost(C: int, T: int, n_ops: int = 1, sweeps: float = 3.0,
-                  vpu_ops_per_sample: float = 22.0) -> dict:
-    """Speculative offline kernel: each sweep reads the signal and writes the
-    output (states-only sweeps would drop the writes); the automaton is ~22
-    dependent VPU ops per sample per cascaded op."""
+def dynamics_cost(C: int, T: int, n_ops: int = 1, sweeps: float = 2.0,
+                  ops_per_sample: float = 30.0) -> dict:
+    """Dynamics walk (kernels/dynamics_walk.py): each sweep reads the
+    signal and writes the output; the automaton is ~30 dependent
+    int/float32 operations per sample per cascaded op."""
     return {"bytes": 4.0 * C * T * (sweeps * 2),
-            "mxu_flops": 0.0,
-            "vpu_flops": float(C) * T * n_ops * sweeps * vpu_ops_per_sample}
-
-
-def tail_cost(C: int, T: int, halo_frac: float = 0.05,
-              vpu_ops_per_sample: float = 15.0) -> dict:
-    """Fused tail kernel: one windowed read (+ halo overlap) + one write."""
-    return {"bytes": 4.0 * C * T * (2 + halo_frac),
-            "mxu_flops": 0.0,
-            "vpu_flops": float(C) * T * vpu_ops_per_sample}
+            "flops": float(C) * T * n_ops * sweeps * ops_per_sample}
 
 
 def classify(measured_s: float, cost: dict, pk: Peaks) -> dict:
     """Attach roofline percentages and name the binding resource."""
     bw_pct = 100.0 * (cost["bytes"] / pk.hbm_bytes_per_s) / measured_s
-    mxu_pct = 100.0 * (cost["mxu_flops"] / pk.mxu_bf16_flops) / measured_s
-    vpu_pct = 100.0 * (cost["vpu_flops"] / pk.vpu_f32_flops) / measured_s
-    top = max(bw_pct, mxu_pct, vpu_pct)
+    fp_pct = 100.0 * (cost["flops"] / pk.fp32_flops) / measured_s
+    top = max(bw_pct, fp_pct)
     if top < 15.0:
         bound = "latency/overhead"
     elif top == bw_pct:
         bound = "hbm-bandwidth"
-    elif top == mxu_pct:
-        bound = "mxu-compute"
     else:
-        bound = "vpu-compute"
+        bound = "fp32-compute"
     return {
         "model_gb": round(cost["bytes"] / 1e9, 4),
-        "model_mxu_gflop": round(cost["mxu_flops"] / 1e9, 2),
-        "model_vpu_gflop": round(cost["vpu_flops"] / 1e9, 2),
+        "model_gflop": round(cost["flops"] / 1e9, 2),
         "hbm_roofline_pct": round(bw_pct, 1),
-        "mxu_roofline_pct": round(mxu_pct, 1),
-        "vpu_roofline_pct": round(vpu_pct, 1),
+        "fp32_roofline_pct": round(fp_pct, 1),
         "bound": bound,
     }

@@ -2,12 +2,12 @@
 //
 // Role: the reference's realtime path runs inside PortAudio's C callback
 // thread (Example3.py:20-25) with a hard deadline of block_size/sample_rate
-// seconds. This library is the equivalent host-side native layer for the TPU
+// seconds. This library is the equivalent host-side native layer for the JAX
 // engine: audio producers/consumers exchange float32 samples with the Python
 // driver through wait-free single-producer/single-consumer rings, and the
 // pump tracks deadline statistics (xruns, worst-case block latency).
 //
-// The DSP itself stays on the TPU (jit-compiled JAX); this layer is the
+// The DSP itself stays on the accelerator (jit-compiled JAX); this layer is the
 // glue that must never allocate, lock, or syscall on the audio thread.
 //
 // C ABI only — consumed from Python via ctypes (no pybind11 in this image).

@@ -5,8 +5,9 @@ the stream callback (/root/reference/Example3.py:28-46, frames_per_buffer =
 config.chunk_size, float32 mono). This adapter provides the same surface for
 ``RealtimeEngine``: the audio callback only moves samples between the
 device and the engine's wait-free SPSC rings (never blocks, never calls into
-JAX), while the engine's pump thread runs the precompiled TPU chain step —
-the callback thread stays deadline-safe even when a TPU dispatch stalls.
+JAX), while the engine's pump thread runs the precompiled chain step on the
+device — the callback thread stays deadline-safe even when a dispatch
+stalls.
 
 Backends, by preference:
   * ``sounddevice`` (PortAudio via CFFI) — ``sd.Stream`` duplex callback.

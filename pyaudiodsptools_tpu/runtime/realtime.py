@@ -1,9 +1,9 @@
 """Realtime engine: native ring buffers around the jit-compiled chain step.
 
 The reference's realtime story is a PyAudio duplex stream whose C callback
-thread calls device.apply (Example3.py:20-46). The TPU-native equivalent:
+thread calls device.apply (Example3.py:20-46). The equivalent here:
 
-  audio producer ──> NativeRing (in) ──> pump thread: TPU chain step
+  audio producer ──> NativeRing (in) ──> pump thread: device chain step
                                             │
   audio consumer <── NativeRing (out) <─────┘
 

@@ -55,15 +55,32 @@ def test_wav_16bit_parity_with_reference():
     np.testing.assert_array_equal(gi, oi)
 
 
-def test_wav_24bit_read():
-    """The reference cannot read its own 24-bit fixtures (dead code,
-    Utility.py:107-121); we can."""
-    audio, rate = wavio.read_wav("/root/reference/TestFile24BitMono.wav")
+def test_wav_24bit_read(tmp_path):
+    """The reference cannot read 24-bit wavs (dead code,
+    Utility.py:107-121); we can. The fixture pair is one generated program
+    written once as 24-bit and once as 16-bit PCM."""
+    import wave
+
+    from pyaudiodsptools_tpu.core import generators
+
+    sig = generators.demo_signal(264600, 44100)
+    i24 = np.round(sig.astype(np.float64) * 2 ** 23).astype("<i4")
+    p24 = str(tmp_path / "x24.wav")
+    with wave.open(p24, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(3)
+        f.setframerate(44100)
+        f.writeframes(i24.view(np.uint8).reshape(-1, 4)[:, :3].tobytes())
+    p16 = str(tmp_path / "x16.wav")
+    wavio.write_wav(p16, sig, 44100)
+
+    audio, rate = wavio.read_wav(p24)
     assert rate == 44100
     assert audio.shape == (264600,)
     assert np.abs(audio).max() <= 1.0
-    # same program as the 16-bit fixture: waveforms should correlate strongly
-    a16 = wavio.mono_wav_to_float("/root/reference/TestFile16BitMono.wav")
+    np.testing.assert_allclose(audio, sig, atol=2.0 ** -23)
+    # same program as the 16-bit file: waveforms should correlate strongly
+    a16 = wavio.mono_wav_to_float(p16)
     corr = np.corrcoef(audio, a16)[0, 1]
     assert corr > 0.99
 

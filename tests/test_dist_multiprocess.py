@@ -1,6 +1,6 @@
 """Multi-process distributed execution: 2 real processes, CPU backend.
 
-Executes ``parallel/dist.py`` end-to-end the way a pod would use it —
+Executes ``parallel/dist.py`` end-to-end the way a multi-host job uses it —
 ``jax.distributed.initialize`` with a real coordinator, a global mesh
 spanning both processes' devices, per-host channel I/O — and asserts the
 assembled output equals a single-process render of the same chain

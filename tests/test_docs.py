@@ -3,8 +3,7 @@
 Regenerates the API reference from the live package and asserts the
 committed docs/api.md matches — any signature/docstring drift fails CI until
 ``make -C docs api`` is rerun. Also checks package coverage of the docs
-pipeline (gen_api.py + gen_html.py — the Sphinx scaffold was dropped in
-round 5, PARITY.md #31) and locks README perf figures to artifacts."""
+pipeline (gen_api.py + gen_html.py, PARITY.md #31)."""
 
 import re
 import subprocess
@@ -29,8 +28,7 @@ def test_api_md_is_fresh(tmp_path):
 def test_gen_api_covers_package():
     """Every module gen_api.py documents must import, and every package
     module with public API must be documented (the docs pipeline is
-    gen_api.py + gen_html.py; the never-executed Sphinx scaffold was
-    dropped in round 5 — see PARITY.md #31)."""
+    gen_api.py + gen_html.py — see PARITY.md #31)."""
     import importlib
     import pkgutil
 
@@ -81,117 +79,3 @@ def test_html_fallback_builds():
     assert "<pre><code>" in arch  # code fences survive the renderer
     index = (out / "index.html").read_text()
     assert 'href="api.html"' in index
-
-
-# --- README performance figures vs committed artifacts (VERDICT r4 #5) ----
-
-import json
-
-REPO = DOCS.parent
-
-
-def _artifact(name):
-    # some captures carry human-readable `#` comment lines above the JSON
-    lines = [ln for ln in (REPO / name).read_text().splitlines()
-             if not ln.startswith("#")]
-    return json.loads("\n".join(lines))
-
-
-def _readme_rows():
-    text = (REPO / "README.md").read_text()
-    rows = {}
-    for line in text.splitlines():
-        if line.startswith("|") and line.count("|") >= 3:
-            cells = [c.strip() for c in line.strip("|").split("|")]
-            if len(cells) >= 3:
-                rows[cells[0]] = (cells[1], cells[2])
-    return rows, text
-
-
-def _num(pattern, s):
-    m = re.search(pattern, s)
-    assert m, (pattern, s)
-    return float(m.group(1))
-
-
-def _close(readme_val, artifact_val, rel=0.02):
-    assert artifact_val != 0
-    assert abs(readme_val - artifact_val) <= rel * abs(artifact_val) + 5e-3, (
-        readme_val, artifact_val)
-
-
-def test_readme_perf_figures_match_artifacts():
-    """Every number in the README performance table traces to its named
-    committed artifact within rounding tolerance — figure drift (the judge
-    finding three rounds running) is now a CI failure, not a review note."""
-    rows, text = _readme_rows()
-
-    def row(label_sub):
-        for k, v in rows.items():
-            if label_sub in k:
-                return v
-        raise AssertionError(f"README row containing {label_sub!r} not found")
-
-    # headline chain @ B=4096 (driver capture). The artifact name in the
-    # row is authoritative — load whichever BENCH_r{N} the row cites.
-    val, art = row("BASELINE config 4")
-    bench = _artifact(re.search(r"`(BENCH(?:_PRE)?_r\d+\.json)`", art).group(1))
-    bench = bench.get("parsed", bench)  # driver captures wrap the JSON line
-    _close(_num(r"\*\*([\d.]+) Gsamples/s\*\*", val),
-           bench["value"] / 1e9)
-    _close(_num(r"([\d,]+)× realtime", val.replace(",", "")),
-           bench["detail"]["realtime_factor_per_chip"], rel=0.05)
-    by_bs = bench["detail"].get("by_block_size", {})
-    if "pure-chained" in val and "4096" in by_bs:
-        _close(_num(r"no perturb overhead\): \*\*([\d.]+)\*\*", val),
-               by_bs["4096"]["pure_chain_samples_per_s"] / 1e9)
-
-    # B=512 row vs the block-size sweep artifact
-    val, art = row("B=512")
-    blocks = _artifact(re.search(r"`(BENCH_BLOCKS_r\d+\.json)`",
-                                 art).group(1))
-    by = blocks["by_block_size"]
-    _close(_num(r"\*\*([\d.]+) Gsamples/s\*\*", val), by["512"]["gsamples_per_s"])
-    if "pure-chained" in val and "512" in by_bs:
-        _close(_num(r"pure-chained ([\d.]+)", val),
-               by_bs["512"]["pure_chain_samples_per_s"] / 1e9)
-    _close(_num(r"B=1024: ([\d.]+)", art), by["1024"]["gsamples_per_s"])
-    _close(_num(r"B=4096: ([\d.]+)", art), by["4096"]["gsamples_per_s"])
-
-    ops = _artifact("BENCH_OPS.json")["results"]
-
-    val, _ = row("FIR/EQ ops")
-    _close(_num(r"([\d.]+) \(lowcut\)", val),
-           ops["lowcut"]["samples_per_s"] / 1e9)
-    _close(_num(r"([\d.]+) \(highcut\)", val),
-           ops["highcut"]["samples_per_s"] / 1e9)
-    _close(_num(r"([\d.]+) \(eq3band\)", val),
-           ops["eq3band_fft"]["samples_per_s"] / 1e9)
-
-    val, _ = row("Compressor/gate")
-    m = re.search(r"([\d.]+) / ([\d.]+) Gsamples/s", val)
-    _close(float(m.group(1)), ops["compressor_pallas"]["samples_per_s"] / 1e9)
-    _close(float(m.group(2)), ops["gate_pallas"]["samples_per_s"] / 1e9)
-
-    val, art = row("Streaming step")
-    stream = _artifact(re.search(r"`(BENCH_STREAM_r\d+\.json)`",
-                                 art).group(1))
-    _close(_num(r"([\d.]+) ms/block", val), stream["value"])
-    _close(_num(r"([\d.]+)× inside", val), stream["vs_baseline"], rel=0.05)
-
-    val, _ = row("stage decomposition")
-    stages = _artifact("BENCH_OPS.json")["chain_stages"]
-    by_kind = {}
-    for k, v in stages.items():
-        by_kind[k.split(":")[0]] = v["ms"]
-    _close(_num(r"conv ([\d.]+) ms", val), by_kind["fir_cascade"])
-    _close(_num(r"dynamics ([\d.]+) ms", val), by_kind["dynamics_cascade"])
-    _close(_num(r"tail ([\d.]+) ms", val), by_kind["tail"])
-    _close(_num(r"([\d.]+) ms fused total", val), by_kind["chain8_total"])
-
-    # achieved-peak calibration paragraph
-    cal = _artifact("BENCH_OPS.json")["calibration"]
-    _close(_num(r"([\d.]+) GB/s HBM copy", text), cal["hbm_copy_gbps"])
-    _close(_num(r"([\d.]+) TFLOP/s bf16 matmul", text),
-           cal["mxu_bf16_tflops"])
-    _close(_num(r"([\d.]+) TFLOP/s VPU fma", text), cal["vpu_fma_tflops"])

@@ -86,27 +86,23 @@ def test_sharded_renderer_keeps_dynamics_time_sharded():
     np.testing.assert_array_equal(golden, out[:, : golden.shape[-1]])
 
 
-def test_time_sharded_pallas_stepper_interpret(monkeypatch):
-    """The TPU branch of dynspec._stepper — the Pallas serial kernel inside
-    shard_map inside while_loop — executes on the virtual mesh in interpret
-    mode (PADT_DYNSPEC_INTERPRET=1), pinning the composition CI could not
-    otherwise reach (the real chip has one device)."""
+def test_time_sharded_pallas_stepper_interpret():
+    """The GPU branch of dynspec — the walk kernel inside shard_map inside
+    while_loop, with entry states carried across devices — executes on the
+    virtual mesh in interpret mode, pinning the composition on the CPU
+    lane; chip_smoke.py --four-cards runs it compiled."""
     if len(jax.devices()) < 4:
         pytest.skip("needs virtual devices")
-    monkeypatch.setenv("PADT_DYNSPEC_INTERPRET", "1")
     cfg = EngineConfig(44100, 512)
     comp = ops.compressor(cfg, -18.0, 0.6, 3.1, 30.1)
+    gate = ops.gate(cfg, -45.0, 0.1, 3.1, 200.1)
 
     sig = _burst(2, 512 * 8, seed=7)
     blocks = blk.make_blocks(jnp.asarray(sig), 512)
-    golden = np.asarray(comp.offline(comp.params, blocks))
+    golden = gate.offline(gate.params, comp.offline(comp.params, blocks))
 
     mesh = make_mesh(channel=1, time=4)
     out = jax.jit(
-        lambda p, b: dynamics_offline_time_sharded(p, b, mesh)
-    )(comp.params, blocks)
-    # interpret-mode kernels match the scan to ~ulp (bit-equality is asserted
-    # on the real chip, tests/test_tpu_lane.py); same bar as test_kernels
-    from ref_loader import snr_db
-
-    assert snr_db(golden, np.asarray(out)) > 100.0
+        lambda p, b: dynamics_offline_time_sharded(p, b, mesh, interpret=True)
+    )((comp.params, gate.params), blocks)
+    np.testing.assert_array_equal(np.asarray(golden), np.asarray(out))

@@ -89,105 +89,55 @@ def test_one_block_latency():
 
 
 # ---------------------------------------------------------------------------
-# plan_segments geometry (ops/fft_filter.plan_segments): the accelerator
-# branch grows small-block windows onto the MXU matmul-FFT path. CPU CI
-# never runs on that backend, so these tests monkeypatch
-# jax.default_backend to pin the exact (halo, seg) the planner picks —
-# a wrong window choice at B=512 would otherwise ship silently.
+# plan_segments geometry (ops/fft_filter.plan_segments): one plan on every
+# backend, so the exact (halo, seg) it picks is pinned here.
 # ---------------------------------------------------------------------------
-
-
-def _patched_plan(monkeypatch, backend, kernel_len, block_size):
-    import jax as _jax
-
-    from pyaudiodsptools_tpu.ops.fft_filter import plan_segments
-
-    monkeypatch.setattr(_jax, "default_backend", lambda: backend)
-    return plan_segments(kernel_len, block_size)
-
-
-@pytest.mark.parametrize("block_size,kernel_len,want", [
-    # B=4096: total=8 already clears the 128*128 MXU threshold -> unchanged
-    (4096, 2047, (1, 7)),
-    # B=1024: window grows 8 -> 16 blocks to reach 16384 = 128*128
-    (1024, 511, (1, 15)),
-    # B=512: window grows 8 -> 32 blocks (16384 samples); halo bumps 1 -> 2
-    # so the fused kernel's store slice is 8-sublane aligned (q = B/n2 = 4)
-    (512, 255, (2, 30)),
-    # B=512, 5-block kernel: halo=5 forces total>=32 via the 4x floor
-    # (MXU-eligible), then aligns 5 -> 6
-    (512, 5 * 512 + 1, (6, 26)),
-    # B=512, kernel just past one block -> halo=2, 4x floor keeps total=8,
-    # growth 8 -> 32
-    (512, 512 + 2, (2, 30)),
-])
-def test_plan_segments_accelerator_geometry(monkeypatch, block_size,
-                                            kernel_len, want):
-    assert _patched_plan(monkeypatch, "tpu", kernel_len, block_size) == want
 
 
 @pytest.mark.parametrize("block_size,kernel_len,want", [
     (4096, 2047, (1, 7)),
     (1024, 511, (1, 7)),
     (512, 255, (1, 7)),
-    (512, 5 * 512 + 1, (5, 27)),   # 4x-halo floor applies on every backend
+    (512, 5 * 512 + 1, (5, 27)),   # 4x-halo floor grows the window
 ])
-def test_plan_segments_cpu_geometry(monkeypatch, block_size, kernel_len,
-                                    want):
-    assert _patched_plan(monkeypatch, "cpu", kernel_len, block_size) == want
+def test_plan_segments_cpu_geometry(block_size, kernel_len, want):
+    from pyaudiodsptools_tpu.ops.fft_filter import plan_segments
 
-
-def test_plan_segments_grown_window_is_mxu_eligible(monkeypatch):
-    import jax as _jax
-
-    from pyaudiodsptools_tpu.kernels.matmul_fft import use_mxu_fft
-
-    for block_size, kernel_len in [(512, 255), (1024, 511), (4096, 2047)]:
-        halo, seg = _patched_plan(monkeypatch, "tpu", kernel_len, block_size)
-        monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-        assert use_mxu_fft((halo + seg) * block_size), (block_size, halo, seg)
-        # halo still covers the kernel and the window is a pow2 block count
-        assert halo * block_size >= kernel_len - 1
-        assert ((halo + seg) & (halo + seg - 1)) == 0
+    assert plan_segments(kernel_len, block_size) == want
 
 
 def test_plan_segments_non_pow2_block_stays_on_fft_path(monkeypatch):
-    # a non-pow2 window can never hit the MXU tier: the planner must keep
-    # the default 8-block window rather than growing it for nothing
-    assert _patched_plan(monkeypatch, "tpu", 255, 500) == (1, 7)
-
-
-def test_fir_plans_offline_in_512_units(monkeypatch):
-    """Big pow2 engine blocks plan the OFFLINE segmentation in 512-sample
-    units so the halo hugs the stripped kernel (streaming stays on engine
-    blocks). Pinned on the accelerator branch: the B=4096 chain-like
-    cascade kernel (~6.1k samples) gets halo 14x512 = 7168 instead of
-    2x4096 = 8192 (window overlap 1.28x vs 1.33x)."""
+    """A non-pow2 planning unit keeps the default 8-block window, whatever
+    the backend (the plan no longer depends on it)."""
     import jax as _jax
 
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
+    from pyaudiodsptools_tpu.ops.fft_filter import plan_segments
+
+    monkeypatch.setattr(_jax, "default_backend", lambda: "gpu")
+    assert plan_segments(255, 500) == (1, 7)
+
+
+def test_fir_plans_offline_in_512_units():
+    """Big pow2 engine blocks plan the OFFLINE segmentation in 512-sample
+    units so the halo hugs the stripped kernel (streaming stays on engine
+    blocks): a B=4096 chain-like cascade kernel (6143 taps after a 3073-tap
+    zero lead) gets halo 12x512 = 6144 instead of 2x4096 = 8192."""
     from pyaudiodsptools_tpu.ops import fft_filter as ff
 
     eff = ff.fir(np.concatenate([np.zeros(3073), np.random.default_rng(0)
                                  .standard_normal(6143)]), 4096)
     p = eff.params
     assert p.seg_unit == 512
-    assert (p.halo, p.seg) == (14, 50)       # n = 64*512 = 32768
-    assert p.slack == 14 * 512 - 6142        # >= n2 for the no-pad gather
-    assert p.slack >= 128
-    # alignment for the fused kernel's store (q = 512/128 = 4)
-    assert (p.halo * 4) % 8 == 0 and (p.seg * 4) % 8 == 0
+    assert p.lead == 3073
+    assert (p.halo, p.seg) == (12, 52)       # n = 64*512 = 32768
+    assert p.halo * 512 >= 6143 - 1          # the halo covers the kernel
     # engine-block streaming window unchanged
     assert p.block_size == 4096
 
 
-def test_fir_single_lowcut_unit_geometry(monkeypatch):
-    import jax as _jax
-
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
+def test_fir_single_lowcut_unit_geometry():
     from pyaudiodsptools_tpu import EngineConfig, ops
 
     p = ops.lowcut(EngineConfig(44100, 4096), 800.0).params
-    # stripped kernel 2047: halo 4 units is aligned but leaves slack 2 <
-    # n2, so plan_segments bumps to 6 (next aligned value) -> n = 16384
-    assert p.seg_unit == 512 and (p.halo, p.seg) == (6, 26)
+    # stripped kernel 2047 taps: halo 4 units, 4x floor -> n = 16*512
+    assert p.seg_unit == 512 and (p.halo, p.seg) == (4, 12)

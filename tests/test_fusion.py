@@ -1,12 +1,12 @@
 """LTI chain fusion (engine/chain.fuse_lti_runs + ops/fft_filter.fir) and the
-speculative segment-parallel dynamics kernel (dynamics_pallas_offline)."""
+speculative segment-parallel dynamics walk (kernels/dynamics_walk)."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
 from pyaudiodsptools_tpu import Chain, EngineConfig, ops
-from pyaudiodsptools_tpu.kernels.dynamics_pallas import dynamics_pallas_offline
+from pyaudiodsptools_tpu.kernels.dynamics_walk import walk_effect, walk_offline
 
 from ref_loader import snr_db
 
@@ -130,10 +130,10 @@ def test_spec_dynamics_matches_scan(factory, kwargs, segments):
         x = jnp.asarray(sig)
         st = eff.init_state(eff.params, (2,))
         _, want = eff.step(eff.params, st, x)
-        got = dynamics_pallas_offline(eff.params, x, segments=segments,
-                                      interpret=True)
-        assert snr_db(np.asarray(want), np.asarray(got)) > 100.0, (
-            name, segments)
+        got, _, _ = walk_offline([eff.params], x, segments=segments,
+                                 interpret=True)
+        np.testing.assert_array_equal(np.asarray(want), np.asarray(got),
+                                      err_msg=f"{name} segments={segments}")
 
 
 def test_spec_dynamics_short_attack_edge():
@@ -147,20 +147,18 @@ def test_spec_dynamics_short_attack_edge():
                      ).astype(np.float32))
     st = eff.init_state(eff.params, (1,))
     _, want = eff.step(eff.params, st, x)
-    got = dynamics_pallas_offline(eff.params, x, segments=7, interpret=True)
-    assert snr_db(np.asarray(want), np.asarray(got)) > 100.0
+    got, _, _ = walk_offline([eff.params], x, segments=7, interpret=True)
+    np.testing.assert_array_equal(np.asarray(want), np.asarray(got))
 
 
 def test_dynamics_cascade_matches_scan_fold():
-    """fused_dynamics runs compressor->gate in ONE kernel pass; must match
+    """walk_effect runs compressor->gate in ONE kernel pass; must match
     folding the two faithful scans (including on a signal with no sync
     windows)."""
-    from pyaudiodsptools_tpu.kernels.dynamics_pallas import fused_dynamics
-
     cfg = EngineConfig(44100, 512)
     comp = ops.compressor(cfg, -18.0, 0.6, 3.1, 30.1)
     gate = ops.gate(cfg, -45.0, 0.1, 3.1, 200.1)
-    fused = fused_dynamics([comp, gate], interpret=True)
+    fused = walk_effect([comp, gate], interpret=True)
 
     rng = np.random.default_rng(11)
     for sig in [
@@ -174,9 +172,9 @@ def test_dynamics_cascade_matches_scan_fold():
         _, mid = comp.step(comp.params, st1, x)
         _, want = gate.step(gate.params, st2, mid)
         got = fused.offline(fused.params, x.reshape(2, -1, 500)).reshape(2, -1)
-        assert snr_db(np.asarray(want), np.asarray(got)) > 100.0
+        np.testing.assert_array_equal(np.asarray(want), np.asarray(got))
 
-    # streaming fold is the faithful scans verbatim
+    # one streaming step walks the block with one lane per channel
     x = jnp.asarray((rng.standard_normal((2, 4000)) * 0.4).astype(np.float32))
     st = fused.init_state(fused.params, (2,))
     _, out = fused.step(fused.params, st, x)
@@ -187,159 +185,14 @@ def test_dynamics_cascade_matches_scan_fold():
     assert bool(jnp.all(out == want))
 
 
-def _conv_bar() -> float:
-    """SNR bar for the fused conv kernels: 100 dB on the default (direct
-    bf16x3) and highest tiers; the opt-in PADT_FFT_PRECISION=fast Karatsuba
-    tier trades ~3 dB for 25% fewer MXU passes (documented in pallas_conv.py)
-    and is barred at its measured floor minus margin."""
-    import os
-
-    return 95.0 if os.environ.get("PADT_FFT_PRECISION", "").lower() == "fast" \
-        else 100.0
-
-
-@pytest.mark.parametrize("n,B,P", [(16384, 5, 2), (32768, 7, 4), (65536, 4, 8)])
-def test_pallas_fused_conv_matches_fft(n, B, P):
-    """The fully-fused Pallas conv kernel must equal irfft(rfft*H),
-    including odd batch sizes (group padding) across sizes/pair counts."""
-    from pyaudiodsptools_tpu.kernels.pallas_conv import conv_pairs_fused
-
-    rng = np.random.default_rng(n % 97)
-    x = rng.standard_normal((B, n)).astype(np.float32)
-    k = rng.standard_normal(2000) / 100.0
-    H = np.fft.rfft(np.concatenate([k, np.zeros(n - len(k))]))
-    packed = jnp.asarray(np.stack([H.real, H.imag]).astype(np.float32))
-    want = np.fft.irfft(np.fft.rfft(x, axis=-1) * H, n=n, axis=-1)
-    got = np.asarray(conv_pairs_fused(jnp.asarray(x), packed, n,
-                                      pairs_per_step=P, interpret=True))
-    assert got.shape == (B, n)
-    assert snr_db(want.astype(np.float32), got) > _conv_bar()
-
-
-@pytest.mark.parametrize("C,nb,klen,shift", [
-    (3, 25, 4000, 1371),   # odd segment count -> group padding; big shift
-    (1, 6, 1, 0),          # identity kernel, single short channel
-    (2, 48, 4096, 2048),   # kernel exactly filling the halo
-])
-def test_segmented_conv_fused_matches_oracle(C, nb, klen, shift):
-    _segmented_case(2048, C, nb, klen, shift)
-
-
-@pytest.mark.parametrize("C,nb,klen,shift", [(2, 25, 6000, 2047),
-                                             (1, 13, 1, 0)])
-def test_segmented_conv_fused_radix2(C, nb, klen, shift):
-    """The production geometry (B=4096, halo 2, seg 6 -> n=32768) takes the
-    radix-2 DIF path (use_radix2); oracle equality must hold there too."""
-    import os
-
-    os.environ["PADT_CONV_RADIX2"] = "1"
-    try:
-        from pyaudiodsptools_tpu.kernels.pallas_conv import use_radix2
-
-        assert use_radix2(32768)
-        _segmented_case(4096, C, nb, klen, shift)
-    finally:
-        os.environ.pop("PADT_CONV_RADIX2", None)
-
-
-def _segmented_case(B, C, nb, klen, shift, slack=None):
-    """The in-kernel-windowed segmented conv (manual HBM DMA of overlapping
-    windows + wrap-free writeback) must equal the delayed linear convolution
-    y[m] = conv(x, k)[m - shift] — the same contract segmented_fft_conv
-    implements with XLA-side window stacking."""
-    from pyaudiodsptools_tpu.kernels.pallas_conv import segmented_conv_fused
-    from pyaudiodsptools_tpu.ops.fft_filter import pack_spectrum
-
-    halo, seg = 2, 6  # n = 8 * B
-    n = (halo + seg) * B
-    rng = np.random.default_rng(klen % 89)
-    x = rng.standard_normal((C, nb * B)).astype(np.float32)
-    k = rng.standard_normal(klen) * 0.1
-    spec = pack_spectrum(np.fft.rfft(np.concatenate([k, np.zeros(n - klen)])))
-    got = np.asarray(segmented_conv_fused(jnp.asarray(x), spec, B, halo, seg,
-                                          shift, slack=slack,
-                                          interpret=True))
-    ref = np.stack([np.convolve(x[c], k)[: nb * B] for c in range(C)])
-    if shift:
-        ref = np.concatenate([np.zeros((C, shift)), ref[:, : nb * B - shift]],
-                             axis=1)
-    assert got.shape == x.shape
-    assert snr_db(ref.astype(np.float32), got) > _conv_bar()
-
-
-def test_set_precision_tier_roundtrip():
-    """Runtime tier switching rebuilds the pre-split constant sets (used by
-    single-process tier benchmarking)."""
-    from pyaudiodsptools_tpu.kernels import pallas_conv as pc
-
-    try:
-        pc.set_precision_tier("fast")
-        (c1, _), _ = pc._consts_np(16384, 2)
-        assert len(c1) == 4  # Karatsuba: re/im/sum/dif pre-split pairs
-        pc.set_precision_tier("high")
-        (c1, _), _ = pc._consts_np(16384, 2)
-        assert len(c1) == 2  # direct: re/im pairs
-        pc.set_precision_tier("highest")
-        (c1, _), _ = pc._consts_np(16384, 2)
-        assert isinstance(c1[0], np.ndarray) and c1[0].dtype == np.float32
-    finally:
-        pc.set_precision_tier("high")
-
-
-def test_auto_pairs_vmem_guard():
-    """Large conv windows shrink pairs-per-step so the kernel's scoped VMEM
-    stays inside the 100 MB limit (the reverb-at-B=4096 window, n=524288,
-    OOM'd at P=4: 115.9 MB)."""
-    from pyaudiodsptools_tpu.kernels.pallas_conv import auto_pairs
-
-    assert auto_pairs(32768) == 4       # production chain geometry
-    assert auto_pairs(262144) == 4      # fits: ~57.7 MB
-    assert auto_pairs(524288) == 2      # reverb at B=4096
-    assert auto_pairs(1048576) == 1
-
-
-@pytest.mark.parametrize("C,nb,klen,shift", [
-    (2, 25, 2000, 1371),   # delta = 1371 % 128 = 91 -> spectral delay
-    (1, 26, 3500, 597),    # mono; delta = 85; ample slack
-])
-def test_segmented_conv_fused_nopad_spectral_shift(C, nb, klen, shift):
-    """The no-pad gather with a NON-row-aligned output delay: the sub-row
-    remainder rides the spectrum as an exact unit-phasor delay (slack
-    provided and sufficient), so no full-signal pad copy happens. Oracle
-    equality must hold bit-for-SNR with the padded path's contract."""
-    B, halo = 2048, 2
-    slack = halo * B - (klen - 1)
-    n2 = 128  # _plan(16384)[1]
-    assert shift % n2 != 0 and slack >= shift % n2  # the path under test
-    _segmented_case(B, C, nb, klen, shift, slack=slack)
-
-
-def test_segmented_conv_fused_insufficient_slack_falls_back():
-    """When the kernel nearly fills the halo, the sub-row delay would break
-    the wrap-free region: the padded path must be kept (and stay correct)."""
-    B, halo, klen, shift = 2048, 2, 4095, 1371  # slack = 2 < delta = 91
-    assert halo * B - (klen - 1) < 1371 % 128
-    _segmented_case(B, 2, 25, klen, shift, slack=halo * B - (klen - 1))
-
-
-def test_segmented_conv_fused_large_shift_falls_back():
-    """A shift so large that more than one window would start before the
-    signal (rho > win_rows) is outside the no-pad gather's head-fix reach:
-    the padded path must engage and stay correct."""
-    B, halo, seg = 2048, 2, 6
-    klen = 1000
-    shift = 7 * B  # rho ~ 7 blocks of rows > win_rows (6 blocks)
-    _segmented_case(B, 2, 25, klen, shift, slack=halo * B - (klen - 1))
-
-
 @pytest.mark.parametrize("seed", range(6))
 def test_random_chain_fused_matches_unfused(seed):
     """Property test over the fusion pass's composition space: a random
     effect sequence rendered through Chain(fuse=True) must match the same
     sequence with fusion disabled. On the CPU lane this sweeps LTI-run
-    grouping and its interleaving with unfusable ops (tail/dynamics fusion
-    is TPU-gated; their composition runs on chip via
-    test_tpu_lane.test_chain8_kernel_backed_on_chip)."""
+    grouping and its interleaving with unfusable ops (dynamics fusion is
+    GPU-gated; its composition runs on the card via
+    test_gpu_lane.test_chain8_on_gpu_matches_cpu)."""
     from pyaudiodsptools_tpu import Chain, EngineConfig, ops
 
     cfg = EngineConfig(44100, 512)
@@ -367,7 +220,7 @@ def test_random_chain_fused_matches_unfused(seed):
     assert snr > 90.0, (snr, [e.name for e in effects])
 
 
-# --- lone dynamics routing (round-5: the README quick-start chain) --------
+# --- lone dynamics routing (the README quick-start chain) -----------------
 
 def _quickstart(cfg, dyn):
     return [ops.lowcut(cfg, 800.0), dyn, ops.softclipper(cfg, 0.44)]
@@ -377,25 +230,25 @@ def _quickstart(cfg, dyn):
     lambda cfg: ops.compressor(cfg, -18.0, 0.6),
     lambda cfg: ops.gate(cfg, -40.0),
 ])
-def test_lone_dynamics_routes_through_kernel_on_tpu(monkeypatch, factory):
-    """On the TPU backend a LONE compressor/gate (dynamics run of 1) must be
-    wrapped with the kernel-backed ``fast_effect`` — the faithful lax.scan
-    offline path measures ~23 Msamples/s on chip vs ~6.7 Gsamples/s for the
-    speculative kernel (BENCH_OPS.json), so an unwrapped single would
-    dominate any chain it appears in (the README quick-start chain is
-    exactly this shape)."""
+def test_lone_dynamics_routes_through_kernel_on_gpu(monkeypatch, factory):
+    """On the GPU backend a LONE compressor/gate (dynamics run of 1) must be
+    wrapped with the walk kernel: the faithful lax.scan costs one device
+    loop iteration per sample, so an unwrapped single would dominate any
+    chain it appears in (the README quick-start chain is exactly this
+    shape)."""
     import jax as _jax
 
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(_jax, "default_backend", lambda: "gpu")
     cfg = EngineConfig(44100, 4096)
     chain = Chain(_quickstart(cfg, factory(cfg)))
     names = [e.name for e in chain.exec_effects]
     assert len(names) == 3, names
-    assert names[1].endswith("_pallas"), names
+    assert names[1].endswith("_walk"), names
 
 
 def test_lone_dynamics_stays_faithful_on_cpu():
-    """Off-TPU the scan path stays (the Pallas kernel is Mosaic-only)."""
+    """Off the GPU the scan path stays (the walk kernel is compiled for the
+    GPU only)."""
     cfg = EngineConfig(44100, 4096)
     chain = Chain(_quickstart(cfg, ops.compressor(cfg, -18.0, 0.6)))
     assert [e.name for e in chain.exec_effects][1] == "compressor"
@@ -403,10 +256,8 @@ def test_lone_dynamics_stays_faithful_on_cpu():
 
 def test_lone_dynamics_wrapper_chain_matches_scan_chain():
     """Interpret-mode render of the quick-start chain with the compressor
-    wrapped exactly as fuse_lti_runs wraps it on TPU, vs the faithful scan
-    chain — pins the wrapped structure's numerics on the CPU lane."""
-    from pyaudiodsptools_tpu.kernels.dynamics_pallas import fast_effect
-
+    wrapped exactly as fuse_lti_runs wraps it on the GPU, vs the faithful
+    scan chain — pins the wrapped structure's numerics on the CPU lane."""
     cfg = EngineConfig(44100, 512)
     comp = ops.compressor(cfg, -18.0, 0.6)
     rng = np.random.default_rng(7)
@@ -416,76 +267,43 @@ def test_lone_dynamics_wrapper_chain_matches_scan_chain():
         x[:, s:s + w] += (rng.standard_normal((2, w)) * 0.7).astype(np.float32)
     blocks = jnp.asarray(np.clip(x, -0.99, 0.99).reshape(2, 24, 512))
 
-    fast = Chain(_quickstart(cfg, fast_effect(comp, interpret=True)),
+    fast = Chain(_quickstart(cfg, walk_effect([comp], interpret=True)),
                  fuse=False)
     plain = Chain(_quickstart(cfg, comp), fuse=False)
     got = np.asarray(fast.render_blocks(blocks))
     want = np.asarray(plain.render_blocks(blocks))
-    assert snr_db(want, got) > 100.0
+    np.testing.assert_array_equal(want, got)
 
-    # streaming path of the wrapper (serial Pallas kernel), same structure
+    # streaming path of the wrapper (one walk per block), same structure
     sf, sp = fast.init_state((2,)), plain.init_state((2,))
     for i in range(6):
         sf, bf = fast.step(sf, blocks[:, i])
         sp, bp = plain.step(sp, blocks[:, i])
-        assert snr_db(np.asarray(bp), np.asarray(bf)) > 100.0
+        np.testing.assert_array_equal(np.asarray(bp), np.asarray(bf))
 
 
-@pytest.mark.parametrize("sig_name", ["bursty", "alternating", "silence"])
-def test_dyn_loop_strategies_bit_equal(monkeypatch, sig_name):
-    """The three offline sweep-loop strategies (hybrid prepass [default] /
-    write-every-sweep / states-only, PADT_DYN_LOOP) must produce
-    bit-identical audio: they compute the same entry fixpoint and always
-    render from converged entries — including the adversarial no-sync
-    'alternating' signal that drives the loop toward its serial worst
-    case, and 'silence' (k=1, prepass already converged)."""
+def test_unfused_chain_still_routes_dynamics_on_gpu(monkeypatch):
+    """fuse=False keeps every op separate, but on the GPU a dynamics op
+    still takes the walk kernel: no path quietly runs the serial scan."""
+    import jax as _jax
+
+    monkeypatch.setattr(_jax, "default_backend", lambda: "gpu")
     cfg = EngineConfig(44100, 512)
-    comp = ops.compressor(cfg, -18.0, 0.6)
-    gate = ops.gate(cfg, -45.0, 0.1)
-    sig = dict(_signals(24000))[sig_name]
-    outs = {}
-    for loop in ("hybrid", "write", "states"):
-        monkeypatch.setenv("PADT_DYN_LOOP", loop)
-        outs[loop] = np.asarray(dynamics_pallas_offline(
-            [comp.params, gate.params], jnp.asarray(sig), segments=9,
-            interpret=True))
-    np.testing.assert_array_equal(outs["hybrid"], outs["write"])
-    np.testing.assert_array_equal(outs["hybrid"], outs["states"])
+    chain = Chain(_quickstart(cfg, ops.compressor(cfg, -18.0, 0.6)) +
+                  [ops.gate(cfg, -40.0)], fuse=False)
+    assert [e.name for e in chain.exec_effects] == [
+        "lowcut", "compressor_walk", "softclipper", "gate_walk"]
 
 
-# --- union-DMA windowed conv (round 5) ------------------------------------
+def test_default_device_cpu_builds_scan_chain_beside_gpu(monkeypatch):
+    """Under jax.default_device(cpu) a Chain plans for the CPU even when the
+    GPU is JAX's default backend: the CPU reference a GPU process renders
+    for comparison (chip_smoke.py, test_gpu_lane.py)."""
+    import jax as _jax
 
-def _assert_union(B, C, nb, klen, shift, slack):
-    """Geometry must actually select _kernel_dma_union (signal long enough
-    that rows >= U), then match the numpy oracle."""
-    from pyaudiodsptools_tpu.kernels.pallas_conv import _plan, auto_pairs
-
-    halo, seg = 2, 6
-    n = (halo + seg) * B
-    n1, n2 = _plan(n)
-    P = auto_pairs(n, 2)
-    win_rows = seg * B // n2
-    U = (2 * P - 1) * win_rows + n1
-    assert nb * B // n2 >= U, "test geometry must engage the union path"
-    _segmented_case(B, C, nb, klen, shift, slack=slack)
-
-
-@pytest.mark.parametrize("shift", [0, 1371, 9219])
-def test_segmented_union_dma(shift):
-    """Long signal engages the one-descriptor union loads/stores; the
-    head-roll (rho), the tail-buffer redirect, and the sub-row spectral
-    delta all ride the union path. 40 engine blocks at B=2048: rows=640
-    >= U=416."""
-    halo = 2
-    klen = 1000
-    _assert_union(2048, 2, 40, klen, shift,
-                  slack=halo * 2048 - (klen - 1))
-
-
-def test_segmented_union_dma_ragged_tail():
-    """Signal length that pads S to the pairs-per-step multiple: the last
-    union loads entirely from the zero-extended tail buffer."""
-    halo = 2
-    klen = 700
-    _assert_union(2048, 3, 41, klen, 2047,
-                  slack=halo * 2048 - (klen - 1))
+    monkeypatch.setattr(_jax, "default_backend", lambda: "gpu")
+    cfg = EngineConfig(44100, 512)
+    assert Chain([ops.compressor(cfg)]).exec_effects[0].name.endswith("_walk")
+    with _jax.default_device(_jax.devices("cpu")[0]):
+        chain = Chain([ops.compressor(cfg)])
+    assert chain.exec_effects[0].name == "compressor"

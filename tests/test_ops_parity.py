@@ -206,37 +206,3 @@ def test_reverb(cfg):
     golden = np.concatenate([np.asarray(dev.applyreverb(c.copy())) for c in chunks])
     eff = reverb(cfg, 1500)
     _check(golden, eff, sig, bound=90.0)
-
-
-def test_fast_pow_accuracy():
-    """The tail kernel's bounded-domain pow (ws._pow01_fast: exp2(d*log2 u)
-    with short polynomials) must stay within ~1e-6 absolute of float64
-    np.power over its whole domain — the margin that keeps the softclipper
-    >100 dB against the reference."""
-    from pyaudiodsptools_tpu.ops.waveshapers import _pow01_fast
-
-    rng = np.random.default_rng(11)
-    u = np.concatenate([
-        rng.random(200_000),                      # bulk of the domain
-        10.0 ** rng.uniform(-30, 0, 50_000),      # tiny magnitudes
-        np.array([0.0, 1.0, 1e-38, 1e-30, 0.5, 0.9999999]),
-    ]).astype(np.float32)
-    for d in (1.0, 1.44, 2.0, 2.7):
-        got = np.asarray(_pow01_fast(jnp.asarray(u), d), np.float64)
-        want = np.power(u.astype(np.float64), d)
-        assert np.max(np.abs(got - want)) < 1e-6, d
-
-
-def test_softclipper_fast_pow_matches_reference(cfg):
-    """The fast-pow softclip variant (the TPU tail kernel's map stage,
-    PADT_TAIL_FAST_POW default on) against the live reference — same bar
-    as the faithful op."""
-    from pyaudiodsptools_tpu.ops.waveshapers import _softclip_fast
-
-    ref = ref_config(SR, B)
-    sig = _sig(8, scale=0.8)
-    dev = ref.CreateSoftClipper(0.44)
-    golden = run_ref_device(dev, chunked(sig, B))
-    eff = softclipper(cfg, 0.44)
-    got = np.asarray(_softclip_fast(eff.params, jnp.asarray(sig)))
-    assert snr_db(golden[: len(sig)], got[: len(golden)]) > 100.0
